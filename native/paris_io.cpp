@@ -1,6 +1,6 @@
 // paris_io — native I/O runtime for the paris_tpu framework.
 //
-// TPU-native counterpart of the reference's C++ host-I/O subsystem
+// Counterpart of the reference's C++ host-I/O subsystem
 // (reference: src/his.cpp byte layout, src/ddbvf.cpp byte layout,
 // src/sink.cpp write path).  The Python layer keeps orchestration;
 // this library does the byte-level hot work without the GIL:
@@ -13,8 +13,9 @@
 //     disjoint-range writers need no lock (unlike the reference's
 //     global sink mutex, sink.cpp:79-81).
 //
-// Build: native/build.sh  ->  libparis_io.so  (loaded via ctypes from
-// paris_tpu/io/native.py; every entry point has a Python fallback).
+// Built from this file at first use by paris_tpu/io/native.py (into
+// native/build/, keyed by this file's hash) and loaded via ctypes;
+// every entry point has a Python fallback.
 
 #include <cerrno>
 #include <cstdint>
@@ -265,62 +266,6 @@ int paris_ddbvf_write(const char* path, const float* data,
   ::close(fd);
   for (int s : status)
     if (s != PARIS_IO_OK) return s;
-  return PARIS_IO_OK;
-}
-
-// Per-FRAME affine-u16 wire quantization of an (n_frames, frame_elems)
-// f32 chunk (the fast-mode h2d staging, pipeline.quantize_chunk_u16):
-// out[f] = rint((in[f] - lo_f) / scale_f), qparams[f] = {scale_f, lo_f}
-// with scale_f = (max_f - min_f)/65535 (1.0 for constant frames).
-// Fused min/max + transform in two passes per frame (NumPy needs ~4
-// full-array passes), threaded across frames — this runs on the
-// streaming critical path feeding the chip.
-// n_threads <= 0 selects hardware_concurrency; callers that run several
-// quantize calls concurrently (pipeline.stage_stream's worker pool)
-// pass their share to avoid oversubscribing the host.
-int paris_quantize_u16(const float* in, std::int64_t n_frames,
-                       std::int64_t frame_elems, std::uint16_t* out,
-                       float* qparams, int n_threads) {
-  if (n_frames <= 0 || frame_elems <= 0) return PARIS_IO_ESPACE;
-  unsigned nt = n_threads > 0 ? (unsigned)n_threads
-                              : std::thread::hardware_concurrency();
-  if (nt < 1) nt = 1;
-  if ((std::int64_t)nt > n_frames) nt = (unsigned)n_frames;
-  std::vector<std::thread> pool;
-  pool.reserve(nt);
-  for (unsigned t = 0; t < nt; ++t) {
-    pool.emplace_back([=] {
-      for (std::int64_t f = t; f < n_frames; f += nt) {
-        const float* src = in + f * frame_elems;
-        float lo = src[0], hi = src[0];
-        for (std::int64_t i = 1; i < frame_elems; ++i) {
-          const float v = src[i];
-          lo = v < lo ? v : lo;
-          hi = v > hi ? v : hi;
-        }
-        float scale = (hi - lo) / 65535.0f;
-        std::uint16_t* dst = out + f * frame_elems;
-        if (!(scale > 0.0f)) {
-          // constant frame (notably the zero-filled placeholder rows of
-          // other hosts' multi-host chunk shards): skip the transform
-          // pass — q=0, scale=1 dequantizes to exactly lo
-          std::memset(dst, 0, (size_t)frame_elems * sizeof(std::uint16_t));
-          qparams[2 * f] = 1.0f;
-          qparams[2 * f + 1] = lo;
-          continue;
-        }
-        const float inv = 1.0f / scale;
-        for (std::int64_t i = 0; i < frame_elems; ++i)
-          // int32 round-to-nearest-even (vectorizes to cvtps2dq; the
-          // i64 lrintf form blocks vectorization)
-          dst[i] = (std::uint16_t)(std::int32_t)__builtin_rintf(
-              (src[i] - lo) * inv);
-        qparams[2 * f] = scale;
-        qparams[2 * f + 1] = lo;
-      }
-    });
-  }
-  for (auto& th : pool) th.join();
   return PARIS_IO_OK;
 }
 

@@ -1,10 +1,11 @@
-"""paris_tpu — TPU-native cone-beam CT (FDK) reconstruction framework.
+"""paris_tpu — cone-beam CT (FDK) reconstruction framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 reference C++/CUDA framework (hzdr/PARIS): HIS projection ingest, FDK
 cosine weighting, FFT ramp filtering, voxel-driven filtered
-backprojection over z-subvolumes, ddbvf output — single chip to
-multi-host TPU pod slices.
+backprojection over z-subvolumes, ddbvf output — one GPU to the GPUs
+of several hosts.  The backprojection hot path is a Pallas/Triton
+kernel for NVIDIA GPUs; a portable XLA op runs everywhere else.
 """
 
 from .exceptions import (

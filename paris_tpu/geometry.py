@@ -1,11 +1,11 @@
 """Scan / volume geometry for cone-beam CT (FDK) reconstruction.
 
-TPU-native re-design of the reference geometry engine
+Re-design of the reference geometry engine
 (reference: src/geometry.{h,cpp}, src/region_of_interest.h,
 src/subvolume_information.h).  All quantities are plain Python floats /
 ints computed on the host once per run — geometry is static for the whole
-reconstruction, so everything downstream (Pallas kernels, pjit programs)
-sees only compile-time constants and keeps XLA shapes static.
+reconstruction, so everything downstream (the Pallas kernel, the jitted
+steps) sees only compile-time constants and keeps XLA shapes static.
 
 Conventions (match reference src/geometry.h:30-57):
   * detector rows are the HORIZONTAL axis (``n_row`` pixels wide, pixel
@@ -175,10 +175,10 @@ class ZBlock:
 class SubvolumeInfo:
     """Plan for splitting the volume into z-blocks.
 
-    TPU-native replacement for the reference's memory-probing planner
+    Replacement for the reference's memory-probing planner
     (src/cuda/subvolume_information.cpp:63-119): instead of halving until
     a trial ``cudaMalloc`` succeeds, we compute the block count
-    deterministically from an HBM budget, and pad all blocks to one
+    deterministically from a device-memory budget, and pad all blocks to one
     uniform shape so XLA compiles a single program (the reference's
     remainder-block would trigger a recompile).
     """

@@ -1,7 +1,7 @@
 """Golden NumPy FDK oracle — the role the reference's OpenMP backend plays.
 
 Deliberately written against the doc/ formulas with plain NumPy (no JAX)
-so it is an INDEPENDENT implementation to test the TPU path against
+so it is an INDEPENDENT implementation to test the device paths against
 (SURVEY.md §4: the reference ships no tests; its OpenMP backend is the
 de-facto oracle — this module is our equivalent).
 

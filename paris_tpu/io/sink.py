@@ -52,7 +52,7 @@ class VolumeSink:
                dim_z: int) -> "VolumeSink":
         """Open an EXISTING sink without truncating (multi-host followers).
 
-        On a pod, process 0 creates the shared ddbvf and every other
+        On a multi-host run, process 0 creates the shared ddbvf and every other
         process attaches after a barrier; all of them then write their
         own disjoint shard ranges.
         """

@@ -11,7 +11,7 @@ iterator design:
     reference's index-leak bug, SURVEY.md §5 bug 3);
   * unreadable / non-HIS files are skipped with a warning (source.cpp:97-100);
   * a background prefetch thread (``prefetch`` > 0) overlaps disk reads
-    with device compute — the TPU analog of the reference's pipelined
+    with device compute — the analog of the reference's pipelined
     h2d loader stage.
 """
 

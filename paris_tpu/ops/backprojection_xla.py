@@ -1,8 +1,9 @@
 """Voxel-driven FDK backprojection — pure-XLA implementation.
 
 This is the portable implementation of the backprojection contract (the
-Pallas kernel in ``backprojection_pallas.py`` is the TPU fast path; this
-one runs anywhere JAX runs and serves as the in-graph reference).
+Pallas/Triton kernel in ``backprojection_gpu.py`` is the GPU fast path;
+this one runs anywhere JAX runs and serves as the in-graph reference and
+the CPU path).
 
 Math (reference: src/openmp/backprojection.cpp:96-152 and
 src/cuda/backprojection.cu:65-130 — the CUDA +0.5 texel shift is texture
@@ -19,16 +20,15 @@ golden convention):
   sample                   det = bilinear(P, v, h), zero outside detector
   accumulate               vol += 1/2 * det * u^2,  u = d_so/(s + d_so)
 
-Chunked over projections: a whole chunk of C filtered projections is
-backprojected per volume pass inside one ``lax.fori_loop``, so the
-volume is read+written once per chunk instead of once per projection —
-this is what moves the op from memory-bound to compute-bound (SURVEY.md
-§7 "hard parts").
+A chunk of C filtered projections is backprojected inside one
+``lax.fori_loop`` whose carry is the whole z-slab, so the slab goes
+through device memory once per PROJECTION (8 B of accumulator traffic
+per voxel update), and s, t, h and u^2 are recomputed for every voxel.
+The GPU kernel keeps a voxel tile in registers across the chunk instead.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import jax
@@ -140,10 +140,13 @@ def backproject_chunk_xla(
     zc = max(1, int(max_temp_bytes) // (4 * ny * nx))
     if dz <= zc:
         return run_slab(volume, zs)
-    slabs = []
+    # slab results are written back in place (a concatenate would hold
+    # a second full accumulator next to the donated one)
     for z0 in range(0, dz, zc):
         d = min(zc, dz - z0)
-        slabs.append(run_slab(
-            jax.lax.slice_in_dim(volume, z0, z0 + d, axis=0),
-            zs[z0:z0 + d]))
-    return jnp.concatenate(slabs, axis=0)
+        volume = jax.lax.dynamic_update_slice_in_dim(
+            volume,
+            run_slab(jax.lax.slice_in_dim(volume, z0, z0 + d, axis=0),
+                     zs[z0:z0 + d]),
+            z0, axis=0)
+    return volume

@@ -11,7 +11,7 @@ Reference math (src/cuda/filtering.cu:45-121, src/openmp/filtering.cpp):
   * application per detector row: zero-pad the row to filter_size, R2C
     FFT, multiply by K, C2R FFT, crop to n_row, divide by filter_size.
 
-TPU-native design: the reference's cuFFT/FFTW plans + expand/shrink/
+Design: the reference's cuFFT/FFTW plans + expand/shrink/
 normalize kernels collapse into one jnp expression — ``jnp.fft.rfft``
 over the minor axis of a (chunk, n_col, n_row) block, a broadcast
 multiply, and ``irfft`` (whose built-in 1/n normalization equals the

@@ -7,7 +7,7 @@ Reference math: src/cuda/weighting.cu:49-56 / src/openmp/weighting.cpp:36-56:
     w    = d_sd / sqrt(d_sd^2 + h_s^2 + v_t^2)
     p   *= w
 
-TPU-native design: the weight map depends only on geometry, never on the
+Design: the weight map depends only on geometry, never on the
 projection data, so we precompute it ONCE as an (n_col, n_row) array and
 apply it as a broadcast multiply over a whole projection chunk — XLA
 fuses this into the surrounding filter pipeline, so there is no separate

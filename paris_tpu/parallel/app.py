@@ -19,13 +19,14 @@ import numpy as np
 import jax
 
 from ..app import (
-    ReconstructionJob, _auto_hbm_budget, _budget_max_dz, _fits_two_blocks,
-    _overlap_block_dz, _overlap_free_est, _perf_block_dz, _roi_offset,
+    ReconstructionJob, _auto_hbm_budget, _fits_two_blocks,
+    _overlap_block_dz, _overlap_free_est, _roi_offset,
 )
 from ..geometry import apply_roi, derive_volume_geometry, plan_z_blocks
 from ..io.sink import VolumeSink
 from ..io.source import ProjectionSource
-from ..utils.logging import StageTimers, fmt_duration
+from ..pipeline import resolve_backend
+from ..utils.logging import StageTimers, StreamTimer, fmt_duration
 from ..utils.profiling import ThroughputMeter, trace
 from .dist import DistributedReconstructor
 from .mesh import make_z_mesh
@@ -79,6 +80,7 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
 
     chunk = max(job.chunk_size, n_dev)
     chunk -= chunk % n_dev
+    backend = resolve_backend(job.backend)
 
     proj_bytes = 4 * job.det.n_row * job.det.n_col
     proj_buffer = 4 * proj_bytes * chunk
@@ -96,24 +98,13 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
             logger.info("auto HBM budget: %.1f GB across %d device(s)",
                         hbm_budget / 2**30, n_dev)
     align = 8 * n_dev
-    block_dz = job.block_dz
-    if block_dz is None:
-        # throughput-aware extent, shared with the single-chip driver
-        # (app._perf_block_dz): larger z columns amortize stage-1
-        # Q-scratch fills; budgets here are mesh aggregates, matching
-        # _perf_block_dz's whole-block comparison
-        block_dz = _perf_block_dz(job, vol_geo, full_geo,
-                                  hbm_budget, proj_buffer)
-        if block_dz is not None and hbm_budget is not None:
-            block_dz = min(block_dz, _budget_max_dz(
-                hbm_budget, proj_buffer, vol_geo, align=align))
     info = plan_z_blocks(
         vol_geo,
         hbm_budget_bytes=hbm_budget,
         proj_buffer_bytes=proj_buffer,
         num_shards=n_dev,
         z_align=8,
-        block_dz=block_dz,
+        block_dz=job.block_dz,
     )
     logger.info("z-split: %d block(s) of %d slices (padded)",
                 info.num, info.dim_z_padded)
@@ -138,7 +129,7 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
             and job.block_dz is None:
         dz2 = _overlap_block_dz(vol_geo, free_est, per_dev_proj,
                                 info.dim_z_padded, n_shards=n_dev,
-                                align=align)
+                                align=align, backend=backend)
         if dz2 is not None:
             info = plan_z_blocks(
                 vol_geo, hbm_budget_bytes=hbm_budget,
@@ -159,38 +150,11 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
         sink = VolumeSink.attach(job.output_path, job.prefix, vol_geo.dim_x,
                                  vol_geo.dim_y, vol_geo.dim_z)
 
-    # detector-row banding, as in app.run_job: widest band over blocks
-    v_band = None
-    if info.num > 1:
-        from ..geometry import detector_row_band
-        rz1_ = job.roi.z1 if job.roi else 0
-        widths = [
-            (lambda lo_hi: lo_hi[1] - lo_hi[0])(
-                detector_row_band(job.det, full_geo, b.z0 + rz1_,
-                                  b.dim_z_padded))
-            for b in info.blocks
-        ]
-        v_band = max(widths)
-        if v_band >= job.det.n_col:
-            v_band = None
-
-    if job.backend in ("pallas", "auto") and jax.default_backend() == "tpu":
-        from ..pipeline import max_chunk_size, resolve_pallas_x_tile
-        from ..ops.backprojection_xla import make_bp_grid as _mk
-        xt = resolve_pallas_x_tile(_mk(job.det, full_geo))
-        cmax = max_chunk_size(job.det, v_band, accuracy=job.accuracy,
-                              x_tile=xt)
-        cmax = max(n_dev, (cmax // n_dev) * n_dev)
-        if chunk > cmax:
-            logger.info("clamping chunk size %d -> %d (VMEM budget)",
-                        chunk, cmax)
-            chunk = cmax
-
     rec = DistributedReconstructor(
         job.det, full_geo, mesh=mesh, chunk_size=chunk,
-        block_dz=info.dim_z_padded, backend=job.backend,
-        v_band_width=v_band, accuracy=job.accuracy,
+        block_dz=info.dim_z_padded, backend=backend,
     )
+    logger.info("backend: %s, chunk size %d", rec.backend, chunk)
 
     rx1, ry1, rz1 = _roi_offset(job)
     # host-side projection cache: read the HIS directory ONCE for N
@@ -221,7 +185,8 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
     # deterministic: steps(k), steps(k+1), barrier(k), steps(k+2), ...
     import concurrent.futures as _cf
     overlap = overlap_enabled and _fits_two_blocks(
-        vol_geo, info.dim_z_padded, per_dev_proj, free_est, n_dev)
+        vol_geo, info.dim_z_padded, per_dev_proj, free_est, n_dev,
+        backend=backend)
     if overlap and info.num > 1:
         logger.info("write overlap: block k+1 reconstructs while "
                     "block k drains to disk")
@@ -304,17 +269,22 @@ def run_job_distributed(job: ReconstructionJob, mesh=None) -> str:
                                     angles.clear()
                             yield data, angs
 
-                    # staging (quantize + each host's h2d) runs on
+                    # staging (padding + each host's h2d) runs on
                     # worker threads, overlapping the devices'
                     # execution of earlier steps (pipeline.stage_stream)
                     from ..pipeline import stage_stream
+                    stream = StreamTimer(first=n_done == 0)
                     for staged, k in stage_stream(rec.stage_chunk,
                                                   pairs()):
+                        stream.staged()
                         volume = rec.step_staged(
                             volume, staged, z_offset=block.z0,
                             roi_offset=(rx1, ry1, rz1))
+                        stream.stepped(volume, logger)
                         n_proj += k
                         meter.add(k)
+                    jax.block_until_ready(volume)
+                    stream.report(logger, block.index)
                     if state["collect"] and datas:
                         cached = (np.concatenate(datas),
                                   np.concatenate(angles))

@@ -1,7 +1,8 @@
-"""Multi-host execution support (pod slices).
+"""Multi-host execution support.
 
 The reference was strictly single-node (SURVEY.md §2: no MPI/NCCL — one
-process, one thread per GPU).  For pod scale the TPU-native pattern is
+process, one thread per GPU).  Within one host a single process drives
+all local GPUs over one mesh; across hosts the pattern is
 single-controller-per-host SPMD:
 
   * every host calls ``initialize()`` (jax.distributed) and then builds
@@ -16,8 +17,8 @@ single-controller-per-host SPMD:
     (io/ddbvf.py semantics).
 
 These helpers are exercised in CI on a single process (where they
-degenerate to trivial cases); real pod smoke tests are gated on
-environment (SURVEY.md §4(e)).
+degenerate to trivial cases) and by two-process CPU tests
+(tests/test_multihost_2proc.py).
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ import jax
 logger = logging.getLogger("paris_tpu.multihost")
 
 __all__ = ["initialize", "is_multihost", "barrier", "local_block_slices",
-           "write_local_shards", "write_local_shards_yxz",
-           "crash_diagnostics"]
+           "write_local_shards", "crash_diagnostics"]
 
 
 def initialize(
@@ -46,11 +46,13 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed (no-op when single-process with no env).
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (``jax.distributed.initialize()``) when the environment looks like a
-    multi-process cluster — correct on Cloud TPU pods — and stays
-    single-process otherwise (a dev box or a single TPU VM must not
-    block on a nonexistent coordinator).  Must run before the first
+    With no arguments, defers to ``jax.distributed.initialize()``'s own
+    environment detection only when a coordinator address is exported
+    (``JAX_COORDINATOR_ADDRESS``/``COORDINATOR_ADDRESS``), and stays
+    single-process otherwise (one process drives all GPUs of one host;
+    a single machine must not block on a nonexistent coordinator).
+    Multi-host runs pass the coordinator, process count and id
+    explicitly (CLI ``--coordinator``).  Must run before the first
     device query (the CLI calls it before any jax computation;
     reference analog: the per-device fan-out in src/main.cpp:157-169
     happened before any work was dispatched).
@@ -59,9 +61,7 @@ def initialize(
         return
     if (coordinator_address is None and num_processes is None
             and process_id is None):
-        hints = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                 "TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                 "CLOUD_TPU_TASK_ID")
+        hints = ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
         if not any(os.environ.get(h) for h in hints):
             logger.info("no multi-host environment detected; running "
                         "single-process over local devices")
@@ -84,7 +84,7 @@ def is_multihost() -> bool:
 def crash_diagnostics(stage: str, marker_dir: Optional[str] = None):
     """Name the failing PROCESS when a distributed run dies.
 
-    On a pod, every host runs the same SPMD program; a bare traceback
+    On a multi-host run, every host runs the same SPMD program; a bare traceback
     doesn't say which host/process failed (the reference's
     signal-handler backtrace was per-process but single-node,
     src/main.cpp:69-77).  This wraps a stage so a failure logs
@@ -176,32 +176,4 @@ def write_local_shards(path: str, volume: jax.Array, z_base: int,
                 continue
         ddbvf.write_slices(path, data[:dz], z_base + z0)
         written += dz
-    return written
-
-
-def write_local_shards_yxz(path: str, volume_yxz: jax.Array, z_base: int,
-                           dim_z_valid: int, dim_y: int, dim_x: int) -> int:
-    """Write this host's y-shards of a Pallas kernel-layout block.
-
-    ``volume_yxz`` is the (ny_padded, nxp, nzp) accumulator sharded on
-    axis 0 (= volume y).  Each addressable shard is transposed host-side
-    to (dz, local_ny, nx), trimmed of x/z/y padding, and written at its
-    global (z_base, y0) offset via ``ddbvf.write_subrows`` — per-host
-    disjoint-range writes, no gather (the finalize+rank-0-write
-    alternative would need the full global block addressable on one
-    host, which a real pod run cannot do).  Returns y rows written.
-    """
-    from ..io import ddbvf
-    written = 0
-    for shard in volume_yxz.addressable_shards:
-        idx = shard.index[0]
-        y0 = idx.start if idx.start is not None else 0
-        data = np.asarray(shard.data)          # (local_ny, nxp, nzp)
-        ny_valid = min(data.shape[0], dim_y - y0)
-        if ny_valid <= 0:
-            continue                           # y-padding-only shard
-        dz = min(dim_z_valid, data.shape[2])
-        sub = np.transpose(data[:ny_valid, :dim_x, :dz], (2, 0, 1))
-        ddbvf.write_subrows(path, sub, z_base, y0)
-        written += ny_valid
     return written

@@ -17,7 +17,7 @@ import numpy as np
 from .geometry import DetectorGeometry, VolumeGeometry
 
 __all__ = ["SHEPP_LOGAN_ELLIPSOIDS", "shepp_logan_volume", "cone_beam_project",
-           "cone_beam_project_jax"]
+           "cone_beam_project_jax", "write_his_scan"]
 
 # (value, x0, y0, z0, a, b, c, rot_deg) — canonical Kak-Slaney 3D variant,
 # coordinates in units of the phantom half-extent (= 1.0).
@@ -208,3 +208,30 @@ def cone_beam_project_jax(det: DetectorGeometry, angles_deg: np.ndarray,
     phis = np.deg2rad(np.asarray(angles_deg, np.float64)).astype(np.float32)
     out = _jax_projector(det, float(scale_mm))(jnp.asarray(phis))
     return np.asarray(out) if block else out
+
+
+def write_his_scan(det: DetectorGeometry, angles_deg: np.ndarray,
+                   scale_mm: float, out_dir: str, *,
+                   frames_per_file: int = 8) -> list:
+    """Synthesize a Shepp-Logan scan on the default device
+    (``cone_beam_project_jax``) and write it as f32 HIS files of
+    ``frames_per_file`` frames, named in angle order; returns the paths.
+    The next batch is projected while the previous one is copied to the
+    host and written."""
+    import os
+    from .io.his import write_his
+    angles_deg = np.asarray(angles_deg, np.float32)
+    os.makedirs(out_dir, exist_ok=True)
+    starts = range(0, len(angles_deg), frames_per_file)
+    paths = []
+    pending = None
+    for i in list(starts) + [None]:
+        nxt = None if i is None else (i, cone_beam_project_jax(
+            det, angles_deg[i:i + frames_per_file], scale_mm, block=False))
+        if pending is not None:
+            j, dev = pending
+            path = os.path.join(out_dir, f"scan_{j:06d}.his")
+            write_his(path, np.asarray(dev), number_dtype=np.float32)
+            paths.append(path)
+        pending = nxt
+    return paths

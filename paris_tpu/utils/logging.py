@@ -9,7 +9,7 @@ import logging
 import time
 from typing import Dict, Optional
 
-__all__ = ["setup_logging", "StageTimers", "fmt_duration"]
+__all__ = ["setup_logging", "StageTimers", "StreamTimer", "fmt_duration"]
 
 
 def setup_logging(verbose: bool = False) -> None:
@@ -51,3 +51,41 @@ class StageTimers:
         if log:
             log.info("stage timings: %s", text)
         return text
+
+
+class StreamTimer:
+    """Host-side split of one block's chunk stream.
+
+    ``staged()`` at the top of each loop pass adds the time the loop
+    waited for the next staged chunk (read + decode + staging on the
+    worker threads); ``stepped()`` after the step dispatch.  On the first
+    chunk of a run (``first=True``) the step is synchronised and its time
+    logged apart: the compile (or persistent-cache load) of the step plus
+    one chunk's run.  ``report()`` logs the block's input wait against
+    its stream time.  Cost: two clock reads per chunk.
+    """
+
+    def __init__(self, first: bool = False):
+        self.first = first
+        self.t0 = self._mark = time.perf_counter()
+        self.wait = 0.0
+
+    def staged(self) -> None:
+        now = time.perf_counter()
+        self.wait += now - self._mark
+        self._mark = now
+
+    def stepped(self, volume, log: logging.Logger) -> None:
+        if self.first:
+            import jax
+            jax.block_until_ready(volume)
+            now = time.perf_counter()
+            log.info("first chunk: read + staged in %.2fs, first step "
+                     "(compile/load + run) %.2fs", self.wait,
+                     now - self._mark)
+            self.first = False
+        self._mark = time.perf_counter()
+
+    def report(self, log: logging.Logger, index: int) -> None:
+        log.info("block %d stream: %.2fs of %.2fs waiting for staged input",
+                 index, self.wait, time.perf_counter() - self.t0)

@@ -1,6 +1,6 @@
 """Worker for the CLI-level 2-process test: forces the CPU platform,
 then enters ``paris_tpu.cli.main`` with real command-line flags — the
-path a pod user takes (`paris-tpu --distributed --coordinator ...`).
+path a multi-host user takes (`paris-tpu --distributed --coordinator ...`).
 
 Config arrives as one JSON argv blob (see tests/_mh_worker.py).
 """

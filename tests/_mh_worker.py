@@ -8,9 +8,9 @@ with N virtual devices, and runs the requested mode:
   * ``e2e_xla``      — full ``run_job_distributed`` (XLA backend,
                        z-sharded volume, per-process shard writes,
                        sink create/attach barrier, manifest).
-  * ``pallas_shards``— ``DistributedReconstructor(backend="pallas",
-                       interpret=True)`` (y-sharded kernel layout) +
-                       ``write_shards`` into a pre-created ddbvf.
+  * ``kernel_shards``— ``DistributedReconstructor(backend="gpu",
+                       interpret=True)`` (the GPU kernel branch, emulated)
+                       + ``write_shards`` into a pre-created ddbvf.
 
 Config arrives as one JSON argv blob so the parent fully controls it.
 """
@@ -24,8 +24,6 @@ def main() -> None:
     cfg = json.loads(sys.argv[1])
     os.environ["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={cfg['local_devices']}")
-    if cfg.get("cache_dir"):
-        os.environ["PARIS_COMPILE_CACHE"] = cfg["cache_dir"]
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(
@@ -43,28 +41,6 @@ def main() -> None:
         from paris_tpu.app import ReconstructionJob
         from paris_tpu.parallel.app import run_job_distributed
 
-        if cfg.get("cache_dir"):
-            # count persistent-executable cache hits/stores so the
-            # parent can assert the warm run LOADED on every process
-            from paris_tpu import compile_cache
-            stats = {"loads": 0, "stores": 0}
-            _load, _store = compile_cache.load, compile_cache.store
-
-            def load(parts, execution_devices=None):
-                r = _load(parts, execution_devices)
-                if r is not None:
-                    stats["loads"] += 1
-                return r
-
-            def store(parts, compiled):
-                r = _store(parts, compiled)
-                if r:
-                    stats["stores"] += 1
-                return r
-
-            compile_cache.load = load
-            compile_cache.store = store
-
         job = ReconstructionJob(
             det=det, input_path=cfg["input"], output_path=cfg["output"],
             prefix=cfg["prefix"], chunk_size=cfg["chunk"], backend="xla",
@@ -75,10 +51,7 @@ def main() -> None:
         # pixel-decoded only its own chunk-shard's frames
         from paris_tpu.io import his
         print(f"DECODE-FRAMES={his.DECODE_STATS['frames']}", flush=True)
-        if cfg.get("cache_dir"):
-            print(f"CACHE-LOADS={stats['loads']} "
-                  f"CACHE-STORES={stats['stores']}", flush=True)
-    elif cfg["mode"] == "pallas_shards":
+    elif cfg["mode"] == "kernel_shards":
         from paris_tpu.parallel import multihost
         from paris_tpu.parallel.dist import DistributedReconstructor
         from paris_tpu.parallel.mesh import make_z_mesh
@@ -86,14 +59,14 @@ def main() -> None:
         vol = derive_volume_geometry(det)
         rec = DistributedReconstructor(
             det, vol, mesh=make_z_mesh(), chunk_size=cfg["chunk"],
-            block_dz=cfg["block_dz"], backend="pallas", interpret=True,
+            block_dz=cfg["block_dz"], backend="gpu", interpret=True,
         )
         rng = np.random.default_rng(7)   # same data on every process
         projs = rng.standard_normal(
             (cfg["chunk"], det.n_col, det.n_row)).astype(np.float32)
         angles = np.arange(cfg["chunk"], dtype=np.float32) * det.delta_phi
         v = rec.accumulate(rec.init_block(), projs, angles)
-        rec.write_shards(v, cfg["ddbvf"], 0, min(cfg["block_dz"], vol.dim_z))
+        rec.write_shards(v, cfg["ddbvf"], 0, vol.dim_z)
         multihost.barrier("paris-test-writes-done")
     else:
         raise SystemExit(f"unknown mode {cfg['mode']!r}")

@@ -275,50 +275,21 @@ def test_cache_projections_true_honored_single_block(scan, tmp_path,
     assert seen.get("called"), "explicit cache_projections=True ignored"
 
 
-def test_auto_hbm_budget_device_kind_fallback(monkeypatch):
-    """Stats-less TPU transports fall back to the device-kind HBM table
-    (a 2048-class volume must still be split, not planned as one
-    un-allocatable 32 GB block)."""
-    import paris_tpu.app as app_mod
-
-    class FakeDev:
-        device_kind = "TPU v5 lite"
-
-        def memory_stats(self):
-            return {}
-
-    monkeypatch.setattr(app_mod, "_jax", None, raising=False)
-    import jax as _jax
-    monkeypatch.setattr(_jax, "local_devices", lambda: [FakeDev()])
-    budget = app_mod._auto_hbm_budget()
-    assert budget == int((16 << 30) * 0.45)
-
-    class UnknownDev:
-        device_kind = "FPGA mystery"
-
-        def memory_stats(self):
-            return {}
-
-    monkeypatch.setattr(_jax, "local_devices", lambda: [UnknownDev()])
-    assert app_mod._auto_hbm_budget() is None
-
-
 def test_overlap_block_dz_2048_class():
-    """At v5e-class free memory the 2048 volume's 416-slice extent
-    (padded accumulator 8.6 GB) cannot hold two accumulators; the
-    overlap adjuster drops to the largest extent whose 128-padded pair
-    fits (384 -> two 6.7 GB accumulators), and leaves fitting extents
-    alone."""
+    """With 12 GiB free per device the 2048 volume's 416-slice extent
+    (6.5 GiB accumulator) cannot hold two accumulators; the overlap
+    adjuster drops to the largest extent whose unpadded pair fits
+    (368 slices), and leaves fitting extents alone."""
     from paris_tpu.app import _overlap_block_dz, _block_hbm_bytes
     from paris_tpu.geometry import VolumeGeometry
     vol = VolumeGeometry(dim_x=2048, dim_y=2048, dim_z=2055,
                          l_vx_x=1.0, l_vx_y=1.0, l_vx_z=1.0)
-    budget = int(7.2 * (1 << 30))          # the v5e auto budget
-    free = int(budget / 0.45 * 0.95)       # what the auto budget implies
+    free = 12 << 30
     proj = 512 << 20
     dz2 = _overlap_block_dz(vol, free, proj, 416)
-    assert dz2 is not None and dz2 <= 384
+    assert dz2 == 368
     assert 2 * _block_hbm_bytes(vol, dz2) + proj <= free
+    assert 2 * _block_hbm_bytes(vol, dz2 + 8) + proj > free
     # an extent already fitting two accumulators is left alone
     assert _overlap_block_dz(vol, free, proj, 256) is None
 

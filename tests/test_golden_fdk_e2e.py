@@ -37,10 +37,12 @@ def test_config1_xla_vs_golden_rmse(scan64):
 
 
 def test_config1_pallas_vs_golden_rmse(scan64):
+    """The GPU backprojection kernel (Pallas interpreter) through the
+    full chain meets the same 1e-3 gate."""
     det, vol, projs, angles, _ = scan64
     golden = golden_fdk(projs, angles, det, vol)
     ours = reconstruct(det, vol, projs, angles, chunk_size=16,
-                       backend="pallas", interpret=True)
+                       backend="gpu", interpret=True)
     rmse = float(np.sqrt(np.mean((ours - golden) ** 2)))
     scale = float(np.abs(golden).max())
     assert rmse / scale <= 1e-3, f"relative RMSE {rmse/scale:.2e} > 1e-3"
@@ -80,7 +82,7 @@ def test_golden_fdk_stream_matches_golden_fdk(scan64):
         assert np.abs(got - ref).max() / scale < 1e-4
 
     # partial sums over disjoint projection shards add exactly to the
-    # full result (the sharded golden_slab.py driver relies on this)
+    # full result (so golden slabs can be computed in parallel shards)
     a = golden_fdk_stream(zip(projs[::2], angles[::2]), det, vol, slabs[:1])
     b = golden_fdk_stream(zip(projs[1::2], angles[1::2]), det, vol, slabs[:1])
     ref = outs[0]
@@ -101,20 +103,3 @@ def test_cone_beam_project_jax_matches_numpy(scan64):
     rmse = float(np.sqrt(np.mean((got - ref) ** 2)))
     assert rmse / s < 1e-3, f"rel RMSE {rmse/s:.2e}"
     assert np.abs(got - ref).max() / s < 0.05
-
-
-def test_config1_pallas_fast_u16_staging_vs_golden_rmse(scan64):
-    """Fast accuracy with affine-u16 WIRE staging (stage_chunk
-    quantizes the raw chunk per-chunk before h2d — half the transfer
-    bytes at ~1.5e-5 of the data range) must meet the 1e-3 gate.
-    (bf16 staging was rejected: the ramp filter amplifies pre-filter
-    quantization noise, 5.5e-3 at the 1024 flagship.)"""
-    from paris_tpu.pipeline import Reconstructor
-    det, vol, projs, angles, _ = scan64
-    golden = golden_fdk(projs, angles, det, vol)
-    rec = Reconstructor(det, vol, chunk_size=16, backend="pallas",
-                        interpret=True, accuracy="fast")
-    ours = rec.run(projs, angles)
-    rmse = float(np.sqrt(np.mean((ours - golden) ** 2)))
-    scale = float(np.abs(golden).max())
-    assert rmse / scale <= 1e-3, f"relative RMSE {rmse/scale:.2e} > 1e-3"

@@ -9,8 +9,11 @@ from paris_tpu.io import native
 from paris_tpu.io.his import read_his, write_his, HisFormatError
 from paris_tpu.io import ddbvf
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="libparis_io.so not built")
+@pytest.fixture(autouse=True)
+def _need_native_library():
+    # decided per test (building the library at first use), not at import
+    if not native.available():
+        pytest.skip("native I/O library did not build (no C++ compiler?)")
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32,
@@ -72,22 +75,3 @@ def test_python_written_file_native_read(tmp_path):
     finally:
         del os.environ["PARIS_IO_NO_NATIVE"]
     np.testing.assert_array_equal(native.ddbvf_read(p, 0, 5), vol)
-
-
-def test_native_quantize_u16_matches_python(monkeypatch):
-    """The fused native per-frame quantizer is bit-identical to the
-    NumPy fallback (same rint round-half-to-even, same scale/lo),
-    including constant frames, negatives, and the padded tail."""
-    if not native.quantize_u16_available():
-        pytest.skip("libparis_io.so lacks paris_quantize_u16")
-    from paris_tpu.pipeline import quantize_chunk_u16
-    rng = np.random.default_rng(9)
-    chunk = rng.uniform(-40, 60000, (5, 37, 41)).astype(np.float32)
-    chunk[2] = 7.25                     # constant frame -> scale 1.0
-    qn, pn = quantize_chunk_u16(chunk.copy(), 7)
-    monkeypatch.setenv("PARIS_IO_NO_NATIVE", "1")
-    qp, pp = quantize_chunk_u16(chunk.copy(), 7)
-    np.testing.assert_array_equal(qn, qp)
-    np.testing.assert_array_equal(pn, pp)
-    np.testing.assert_array_equal(qn[5:], 0)
-    np.testing.assert_array_equal(pn[5:], 0.0)

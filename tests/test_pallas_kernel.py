@@ -1,501 +1,258 @@
-"""Pallas backprojection kernel (interpret mode) vs the XLA reference op.
+"""Pallas backprojection kernel for GPUs (Triton route) vs the XLA op and
+the NumPy oracle.
 
-Interpret mode emulates the TPU kernel semantics on CPU (SURVEY.md §4:
-multi-device and kernel logic must be testable without hardware); the
-compiled path is exercised on the real chip by bench.py.
+On CPU the kernel runs in the Pallas interpreter (``interpret=True``),
+which executes the same kernel body program by program; the compiled
+kernel runs on the card in ``chip_smoke.py`` and in the ``gpu``-marked
+test below.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from paris_tpu.geometry import DetectorGeometry, derive_volume_geometry
-from paris_tpu.ops.backprojection_xla import backproject_chunk_xla, make_bp_grid
-from paris_tpu.ops.backprojection_pallas import (
-    backproject_chunk_pallas,
-    pallas_supported,
+from paris_tpu.geometry import (
+    DetectorGeometry, VolumeGeometry, derive_volume_geometry,
 )
+from paris_tpu.golden import golden_backproject, golden_fdk
+from paris_tpu.ops.backprojection_gpu import TXY, TZ, backproject_chunk_gpu
+from paris_tpu.ops.backprojection_xla import backproject_chunk_xla, make_bp_grid
 
 
-@pytest.fixture(scope="module")
-def setup():
-    det = DetectorGeometry(
-        n_row=96, n_col=80, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
+def _det(**kw) -> DetectorGeometry:
+    base = dict(n_row=96, n_col=80, l_px_row=2.0, l_px_col=2.0,
+                delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0,
+                delta_phi=2.0)
+    base.update(kw)
+    return DetectorGeometry(**base)
+
+
+def _angles(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).uniform(0.0, 360.0, n).astype(
+        np.float32)
+
+
+def _both(det, vol, projs, angles, block, *, z_offset=0, roi=(0, 0, 0),
+          base=None):
+    """(kernel, XLA op) results for one chunk into one block."""
     grid = make_bp_grid(det, vol)
-    rng = np.random.default_rng(7)
-    C = 3
-    projs = rng.standard_normal((C, det.n_col, det.n_row)).astype(np.float32)
-    phi = np.deg2rad([0.0, 33.0, 261.5]).astype(np.float32)
-    return det, vol, grid, projs, phi
+    phi = jnp.deg2rad(jnp.asarray(angles))
+    sin, cos = jnp.sin(phi), jnp.cos(phi)
+    v0 = jnp.zeros(block, jnp.float32) if base is None else jnp.asarray(base)
+    p = jnp.asarray(projs)
+    ref = backproject_chunk_xla(v0, p, sin, cos, grid, z_offset=z_offset,
+                                roi_offset=roi)
+    offs = jnp.asarray([roi[0], roi[1], roi[2] + z_offset], jnp.int32)
+    out = backproject_chunk_gpu(v0, p, sin, cos, grid, offs, interpret=True)
+    return np.asarray(out), np.asarray(ref)
 
 
-def test_geometry_in_pallas_envelope(setup):
-    _, _, grid, _, _ = setup
-    assert pallas_supported(grid)
+def _assert_close(out, ref):
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    peak = float(np.abs(ref).max())
+    assert peak > 0
+    rel = float(np.sqrt(np.mean((out.astype(np.float64) - ref) ** 2))) / peak
+    assert rel <= 1e-5, f"rel RMSE {rel:.2e}"
+    assert float(np.abs(out - ref).max()) <= 1e-4 * peak
 
 
-def test_pallas_matches_xla(setup):
-    det, vol, grid, projs, phi = setup
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    vol0 = jnp.zeros((vol.dim_z, vol.dim_y, vol.dim_x), jnp.float32)
-
-    ref = np.asarray(backproject_chunk_xla(
-        vol0, jnp.asarray(projs), sin, cos, grid))
-    out = np.asarray(backproject_chunk_pallas(
-        vol0, jnp.asarray(projs), sin, cos, grid, interpret=True))
-
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
-
-
-def test_pallas_accumulates_into_existing(setup):
-    det, vol, grid, projs, phi = setup
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    rng = np.random.default_rng(8)
-    base = rng.standard_normal((vol.dim_z, vol.dim_y, vol.dim_x)).astype(np.float32)
-
-    ref = np.asarray(backproject_chunk_xla(
-        jnp.asarray(base), jnp.asarray(projs), sin, cos, grid))
-    out = np.asarray(backproject_chunk_pallas(
-        jnp.asarray(base), jnp.asarray(projs), sin, cos, grid, interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+def _parity(seed, det_kw, n, block=None, z_offset=0, roi=(0, 0, 0),
+            accumulate=False):
+    """Kernel vs XLA op for n random projections into one block
+    (``block`` None = the full volume)."""
+    det = _det(**det_kw)
+    vol = derive_volume_geometry(det)
+    block = block or vol.shape_zyx
+    rng = np.random.default_rng(seed)
+    projs = rng.standard_normal((n, det.n_col, det.n_row)).astype(np.float32)
+    base = (rng.standard_normal(block).astype(np.float32)
+            if accumulate else None)
+    out, ref = _both(det, vol, projs, _angles(n, seed + 1), block,
+                     z_offset=z_offset, roi=roi, base=base)
+    _assert_close(out, ref)
 
 
-def test_pallas_z_offset_roi(setup):
-    det, vol, grid, projs, phi = setup
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    dz = 16
-    vol0 = jnp.zeros((dz, vol.dim_y, vol.dim_x), jnp.float32)
-    ref = np.asarray(backproject_chunk_xla(
-        vol0, jnp.asarray(projs), sin, cos, grid,
-        z_offset=24, roi_offset=(5, 3, 2)))
-    out = np.asarray(backproject_chunk_pallas(
-        vol0, jnp.asarray(projs), sin, cos, grid,
-        z_offset=24, roi_offset=(5, 3, 2), interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+def test_pallas_matches_xla():
+    """BASELINE config 1 geometry: 64^2 detector, 64^3 volume."""
+    _parity(7, dict(n_row=64, n_col=64), 4)
 
 
-def test_pallas_offset_detector(setup):
+def test_pallas_accumulates_into_existing():
+    _parity(8, {}, 3, accumulate=True)
+
+
+def test_pallas_z_offset_roi():
+    _parity(9, {}, 3, block=(16, 40, 52), z_offset=24, roi=(5, 3, 2))
+
+
+def test_pallas_offset_detector():
     """Nonzero delta_s/delta_t (offset detector, doc/roi_* cases)."""
-    det = DetectorGeometry(
-        n_row=96, n_col=80, l_px_row=2.0, l_px_col=2.0,
-        delta_s=4.6, delta_t=-2.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
+    _parity(10, dict(delta_s=4.6, delta_t=-2.0), 3)
+
+
+# name -> (seed, detector overrides, n_proj, block, z_offset, roi offset)
+MORE_CASES = {
+    "ragged_non_pow2": (11, dict(n_row=50, n_col=41), 5, (13, 37, 29), 7,
+                        (3, 5, 0)),
+    "single_projection": (12, {}, 1, (9, 96, 96), 30, (0, 0, 0)),
+    "odd_chunk": (13, {}, 9, (8, 96, 96), 40, (0, 0, 0)),
+    "wide_fan": (14, dict(n_row=64, n_col=64, d_so=68.0, d_od=60.0), 4,
+                 None, 0, (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(MORE_CASES), ids=list(MORE_CASES))
+def test_kernel_matches_xla(case):
+    seed, kw, n, block, z_offset, roi = MORE_CASES[case]
+    _parity(seed, kw, n, block=block, z_offset=z_offset, roi=roi)
+
+
+def test_kernel_zero_padded_chunk_tail():
+    """Zero frames padding a chunk tail add exactly nothing: a 2+2
+    padded chunk equals the 2 real frames alone."""
+    det = _det()
     vol = derive_volume_geometry(det)
-    grid = make_bp_grid(det, vol)
-    rng = np.random.default_rng(9)
-    projs = rng.standard_normal((2, det.n_col, det.n_row)).astype(np.float32)
-    phi = np.deg2rad([10.0, 190.0]).astype(np.float32)
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    vol0 = jnp.zeros((vol.dim_z, vol.dim_y, vol.dim_x), jnp.float32)
-    ref = np.asarray(backproject_chunk_xla(
-        vol0, jnp.asarray(projs), sin, cos, grid))
-    out = np.asarray(backproject_chunk_pallas(
-        vol0, jnp.asarray(projs), sin, cos, grid, interpret=True))
-    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+    rng = np.random.default_rng(3)
+    real = rng.standard_normal((2, det.n_col, det.n_row)).astype(np.float32)
+    padded = np.concatenate([real, np.zeros_like(real)])
+    angles = np.asarray([10.0, 75.0, 0.0, 0.0], np.float32)
+    block = (12, vol.dim_y, vol.dim_x)
+    out_pad, _ = _both(det, vol, padded, angles, block, z_offset=20)
+    out_real, ref = _both(det, vol, real, angles[:2], block, z_offset=20)
+    np.testing.assert_array_equal(out_pad, out_real)
+    _assert_close(out_real, ref)
 
 
-def test_pallas_v_band_matches_full():
-    """Row-banded projections (detector_row_band) == full-height result."""
-    from paris_tpu.pipeline import Reconstructor
-    det = DetectorGeometry(
-        n_row=96, n_col=160, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
+# (dz, ny, nx) blocks against the fixed (TZ, TXY) tile: smaller than
+# one tile, one past a tile in each dimension, an exact multiple, and
+# rows that straddle xy tiles
+RAGGED_BLOCKS = {
+    "below_one_tile": (TZ - 5, 3, 7),
+    "one_past_tile": (TZ + 1, 1, TXY + 1),
+    "exact_multiple": (2 * TZ, 4, TXY // 4),
+    "rows_straddle_tiles": (TZ - 1, 9, 29),
+    "single_slice": (1, 23, 19),
+}
+
+
+@pytest.mark.parametrize("block", list(RAGGED_BLOCKS.values()),
+                         ids=list(RAGGED_BLOCKS))
+def test_kernel_ragged_block_masks(block):
+    """Load/store masks at the block's ragged edges: the XLA result on
+    blocks that the tile does and does not divide."""
+    det = _det(n_row=50, n_col=41)
     vol = derive_volume_geometry(det)
     rng = np.random.default_rng(11)
     projs = rng.standard_normal((3, det.n_col, det.n_row)).astype(np.float32)
-    angles = np.asarray([0.0, 40.0, 200.0], np.float32)
-
-    full = Reconstructor(det, vol, chunk_size=3, backend="pallas",
-                         interpret=True)
-    out_full = full.run(projs, angles)
-
-    dz = 16
-    z0 = vol.dim_z // 2
-    banded = Reconstructor(
-        det, vol, chunk_size=3, backend="pallas", interpret=True,
-        block_shape=(dz, vol.dim_y, vol.dim_x), v_band_width=128)
-    assert banded._vp == 128 < banded._bpp._round_up(det.n_col, 128)
-    out_band = banded.run(projs, angles, z_offset=z0)
-    np.testing.assert_allclose(out_band, out_full[z0:z0 + dz],
-                               rtol=1e-4, atol=1e-4)
+    out, ref = _both(det, vol, projs, _angles(3, 12), block,
+                     z_offset=9, roi=(4, 2, 0))
+    _assert_close(out, ref)
 
 
-def test_pallas_window_modes_match(setup):
-    """direct / dynamic stage-2 window strategies agree.
+@pytest.mark.parametrize("edge", ("h_low", "h_high", "v_low", "v_high"))
+def test_kernel_border_zero_at_each_detector_edge(edge):
+    """A sample with any bilinear corner off the detector is zero (the
+    reference's border rule); one just inside is not — checked per
+    detector edge against the NumPy oracle."""
+    det = _det(n_row=48, n_col=40)
+    # enlarged volume (1.6x the reconstructable one): at phi = 0 its
+    # samples cross every detector edge
+    base = derive_volume_geometry(det)
+    big = VolumeGeometry(dim_x=int(base.dim_x * 1.6),
+                         dim_y=int(base.dim_y * 1.6),
+                         dim_z=int(base.dim_z * 1.6),
+                         l_vx_x=base.l_vx_x, l_vx_y=base.l_vx_y,
+                         l_vx_z=base.l_vx_z)
+    ones = np.ones((1, det.n_col, det.n_row), np.float32)
+    out, _ = _both(det, big, ones, np.zeros(1, np.float32), big.shape_zyx)
+    gold = golden_backproject(np.zeros(big.shape_zyx, np.float32), ones[0],
+                              0.0, det, big)
+    np.testing.assert_allclose(out, gold, rtol=1e-5, atol=1e-6)
 
-    Needs a tall detector so K = VP/128 exceeds span_w — otherwise the
-    all-window fast case short-circuits every mode.
-    """
-    from paris_tpu.ops import backprojection_pallas as bpp
-    det = DetectorGeometry(
-        n_row=96, n_col=640, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
+    # detector coordinates of every voxel at phi = 0 (s = x, t = y)
+    def centered(n, l):
+        return -(n * l) / 2.0 + l / 2.0 + np.arange(n) * l
+    xs = centered(big.dim_x, big.l_vx_x)
+    ys = centered(big.dim_y, big.l_vx_y)
+    zs = centered(big.dim_z, big.l_vx_z)
+    factor = np.broadcast_to(det.d_sd / (xs[None, :] + det.d_so),
+                             (big.dim_y, big.dim_x))
+    h = (ys[:, None] * factor + det.n_row * det.l_px_row / 2.0) \
+        / det.l_px_row - 0.5
+    v = (zs[:, None, None] * factor[None] + det.n_col * det.l_px_col / 2.0) \
+        / det.l_px_col - 0.5                                      # (z, y, x)
+    h = np.broadcast_to(h[None], v.shape)
+    h1, v1 = np.floor(h), np.floor(v)
+    inside_h = (h1 >= 0) & (h1 + 1 < det.n_row)
+    inside_v = (v1 >= 0) & (v1 + 1 < det.n_col)
+    beyond, edge_in = {
+        "h_low": (h1 < 0, inside_v & (h1 == 0)),
+        "h_high": (h1 + 1 >= det.n_row, inside_v & (h1 == det.n_row - 2)),
+        "v_low": (v1 < 0, inside_h & (v1 == 0)),
+        "v_high": (v1 + 1 >= det.n_col, inside_h & (v1 == det.n_col - 2)),
+    }[edge]
+    assert beyond.any() and edge_in.any()
+    assert np.all(out[beyond] == 0.0)
+    assert np.all(out[edge_in] > 0.0)
+
+
+def test_kernel_wide_fan_reconstruction_matches_golden():
+    """A wide-fan geometry (source 68 mm from the axis) through the full
+    chain with the kernel meets the 1e-3 gate against the oracle."""
+    from paris_tpu.phantom import cone_beam_project
+    from paris_tpu.pipeline import Reconstructor
+    det = _det(n_row=64, n_col=64, d_so=68.0, d_od=60.0)
+    vol = derive_volume_geometry(det)
+    angles = np.arange(0, 180, 4, dtype=np.float32) * 2.0
+    scale = vol.dim_x * vol.l_vx_x / 2.0 * 0.9
+    projs = cone_beam_project(det, angles, scale_mm=scale)
+    rec = Reconstructor(det, vol, chunk_size=16, backend="gpu",
+                        interpret=True)
+    ours = rec.run(projs, angles)
+    golden = golden_fdk(projs, angles, det, vol)
+    rel = float(np.sqrt(np.mean((ours - golden) ** 2))
+                / np.abs(golden).max())
+    assert rel <= 1e-3, f"relative RMSE {rel:.2e} > 1e-3"
+
+
+def test_kernel_without_gpu_raises():
+    """Compiling the kernel for a GPU that is not there fails loudly —
+    no silent interpreter or XLA fallback."""
+    det = _det()
+    vol = derive_volume_geometry(det)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        backproject_chunk_gpu(
+            jnp.zeros((8, vol.dim_y, vol.dim_x)),
+            jnp.zeros((1, det.n_col, det.n_row)), jnp.zeros(1),
+            jnp.ones(1), make_bp_grid(det, vol),
+            jnp.zeros(3, jnp.int32))
+
+
+def test_kernel_rejects_mismatched_projections():
+    det = _det()
+    vol = derive_volume_geometry(det)
+    with pytest.raises(ValueError, match="do not match the detector"):
+        backproject_chunk_gpu(
+            jnp.zeros((8, vol.dim_y, vol.dim_x)),
+            jnp.zeros((1, det.n_row, det.n_col)), jnp.zeros(1),
+            jnp.ones(1), make_bp_grid(det, vol),
+            jnp.zeros(3, jnp.int32), interpret=True)
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu():
+    """The kernel as compiled for the card (no interpreter)."""
+    det = _det(n_row=50, n_col=41, delta_s=2.5)
     vol = derive_volume_geometry(det)
     grid = make_bp_grid(det, vol)
-    span_w = bpp._v_span_windows(grid)
-    assert 640 // 128 > max(span_w, 2), (span_w,)
-    rng = np.random.default_rng(13)
-    projs = rng.standard_normal((2, det.n_col, det.n_row)).astype(np.float32)
-    phi = np.deg2rad([15.0, 200.0]).astype(np.float32)
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    dz = 16
-    vol0 = jnp.zeros((dz, vol.dim_y, vol.dim_x), jnp.float32)
-    # two z windows: near the volume center and near the top edge
-    for z0 in (vol.dim_z // 2 - dz // 2, vol.dim_z - dz):
-        ref = np.asarray(backproject_chunk_xla(
-            vol0, jnp.asarray(projs), sin, cos, grid, z_offset=z0))
-        for mode in ("direct", "dynamic"):
-            out = np.asarray(backproject_chunk_pallas(
-                vol0, jnp.asarray(projs), sin, cos, grid, z_offset=z0,
-                interpret=True, window_mode=mode))
-            # atol 5e-4: at the volume's top edge a detector-border v
-            # can land on an integer boundary where a 1-ulp floor
-            # difference vs the XLA op flips one bilinear sample
-            np.testing.assert_allclose(out, ref, rtol=1e-4, atol=5e-4,
-                                       err_msg=f"mode={mode} z0={z0}")
-
-
-def test_pallas_window_modes_banded():
-    """dynamic window mode with a nonzero detector-row band start.
-
-    Wide band (K=3 > span_w) on a tall detector exercises the scalar
-    k0 derivation against the band offset vlo.
-    """
-    from paris_tpu.pipeline import Reconstructor
-    from paris_tpu.ops import backprojection_pallas as bpp
-    det = DetectorGeometry(
-        n_row=96, n_col=640, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
-    rng = np.random.default_rng(17)
-    projs = rng.standard_normal((2, det.n_col, det.n_row)).astype(np.float32)
-    angles = np.asarray([20.0, 210.0], np.float32)
-
-    full = Reconstructor(det, vol, chunk_size=2, backend="pallas",
-                         interpret=True, window_mode="direct")
-    out_full = full.run(projs, angles)
-
-    dz = 16
-    z0 = vol.dim_z - 3 * dz          # near the top -> band start vlo > 0
-    banded = Reconstructor(
-        det, vol, chunk_size=2, backend="pallas", interpret=True,
-        block_shape=(dz, vol.dim_y, vol.dim_x), v_band_width=384,
-        window_mode="dynamic")
-    assert banded._vp == 384, banded._vp
-    assert banded._v_band_lo(z0) > 0
-    out_band = banded.run(projs, angles, z_offset=z0)
-    np.testing.assert_allclose(out_band, out_full[z0:z0 + dz],
-                               rtol=1e-4, atol=5e-4)
-
-
-def _tall_setup():
-    det = DetectorGeometry(
-        n_row=96, n_col=640, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
-    grid = make_bp_grid(det, vol)
-    rng = np.random.default_rng(23)
-    projs = rng.standard_normal((2, det.n_col, det.n_row)).astype(np.float32)
-    phi = np.deg2rad([15.0, 200.0]).astype(np.float32)
-    return det, vol, grid, projs, phi
-
-
-def test_static_window_plan_covers_interval():
-    """Every static-plan entry must cover its sub-tile's v interval.
-
-    Regression for the odd-base truncation bug: stride-2 windows from an
-    odd base top out 64 lanes short of VP, and the old nw clamp DROPPED
-    windows instead of lowering the base — silently corrupting top-z
-    sub-tiles on the bench geometries (e.g. 1024-class block 1 z2=3).
-    The plan now asserts coverage internally; this sweep drives it over
-    every bench-style geometry x block split.
-    """
-    import math
-    from paris_tpu.geometry import detector_row_band
-    from paris_tpu.ops import backprojection_pallas as bpp
-    for size in (256, 512, 1024, 1536, 2048):
-        det = DetectorGeometry(
-            n_row=size, n_col=size, l_px_row=1.0, l_px_col=1.0,
-            delta_s=0.0, delta_t=0.0, d_so=8.0 * size, d_od=4.0 * size,
-            delta_phi=0.5)
-        vol = derive_volume_geometry(det)
-        grid = make_bp_grid(det, vol)
-        for block_dz in (128, 256, 512):
-            if block_dz > vol.dim_z:
-                continue
-            n_blocks = -(-vol.dim_z // block_dz)
-            vband = max(
-                detector_row_band(det, vol, i * block_dz, block_dz)[1]
-                - detector_row_band(det, vol, i * block_dz, block_dz)[0]
-                for i in range(n_blocks))
-            vp_full = bpp._round_up(det.n_col, 128)
-            VP = min(vp_full, bpp._round_up(vband, 128))
-            KW = max(1, 2 * (VP // 128) - 1)
-            z_tile = min(512, block_dz)
-            for blk in range(n_blocks):
-                z0s = blk * block_dz
-                lo_band, _ = detector_row_band(det, vol, z0s, block_dz)
-                vls = (max(0, min(lo_band, vp_full - VP))
-                       if VP < vp_full else 0)
-                plan = bpp._static_window_plan(
-                    grid, z0s, vls, VP, KW, z_tile // 128)
-                for wb, nw, _skip in plan:
-                    assert 0 <= wb <= KW - 1
-                    assert wb + 2 * (nw - 1) <= KW - 1
-
-
-def test_pallas_static_plan_matches_xla_at_top_edge():
-    """static_plan parity where the OLD plan truncated (odd window base,
-    v interval reaching the detector top: n_col=640, z0=536 — real
-    voxels reach v0=580 while the clamped plan covered only [448, 576))."""
-    from paris_tpu.ops import backprojection_pallas as bpp
-    det, vol, grid, projs, phi = _tall_setup()
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    dz = 16
-    vol0 = jnp.zeros((dz, vol.dim_y, vol.dim_x), jnp.float32)
-    for z0 in (536, vol.dim_z // 2 - dz // 2):
-        ref = np.asarray(backproject_chunk_xla(
-            vol0, jnp.asarray(projs), sin, cos, grid, z_offset=z0))
-        vk = bpp.to_kernel_layout(vol0)
-        pt = bpp.pad_projections_t(jnp.asarray(projs))
-        offs = jnp.asarray([0, 0, z0, 0], jnp.int32)
-        out = bpp.backproject_chunk_pallas_yxz(
-            vk, pt, sin, cos, grid, offs, interpret=True,
-            window_mode="dynamic", static_plan=(z0, 0))
-        out = np.asarray(bpp.from_kernel_layout(out, vol0.shape))
-        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=5e-4,
-                                   err_msg=f"z0={z0}")
-
-
-def test_pallas_fast_mode_accuracy(setup):
-    """bf16 packed-table fast mode stays within per-sample bf16 noise."""
-    import jax
-    det, vol, grid, projs, phi = setup
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    vol0 = jnp.zeros((vol.dim_z, vol.dim_y, vol.dim_x), jnp.float32)
-    ref = np.asarray(backproject_chunk_xla(
-        vol0, jnp.asarray(projs), sin, cos, grid))
-    fast = np.asarray(backproject_chunk_pallas(
-        vol0, jnp.asarray(projs), sin, cos, grid, interpret=True,
-        precision=jax.lax.Precision.DEFAULT))
-    scale = np.abs(ref).max()
-    assert np.abs(fast - ref).max() / scale < 2e-2
-    assert np.sqrt(np.mean((fast - ref) ** 2)) / scale < 2e-3
-
-
-def test_pallas_fast_bf16_projection_band(setup):
-    """Fast mode's bf16-resident projection band stays in the same
-    error class (DEFAULT matmul precision already truncates the MXU
-    inputs to bf16, so storing the band in bf16 costs ~nothing extra
-    while halving VMEM -> 2x chunk size)."""
-    import jax
-    from paris_tpu.ops import backprojection_pallas as bpp
-    det, vol, grid, projs, phi = setup
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    vol0 = jnp.zeros((vol.dim_z, vol.dim_y, vol.dim_x), jnp.float32)
-    ref = np.asarray(backproject_chunk_xla(
-        vol0, jnp.asarray(projs), sin, cos, grid))
-    vk = bpp.to_kernel_layout(vol0)
-    pt = bpp.pad_projections_t(jnp.asarray(projs), jnp.bfloat16)
-    assert pt.dtype == jnp.bfloat16
-    offs = jnp.zeros((4,), jnp.int32)
-    out = bpp.backproject_chunk_pallas_yxz(
-        vk, pt, sin, cos, grid, offs, interpret=True,
-        precision=jax.lax.Precision.DEFAULT, pack_qdq=True)
-    out = np.asarray(bpp.from_kernel_layout(out, vol0.shape))
-    scale = np.abs(ref).max()
-    assert np.abs(out - ref).max() / scale < 2e-2
-    assert np.sqrt(np.mean((out - ref) ** 2)) / scale < 2e-3
-
-
-def test_from_kernel_layout_host_matches_device():
-    """Slab-wise host transpose == device-side layout conversion
-    (the big-block finalize path that avoids 3x-block HBM peaks)."""
-    from paris_tpu.ops import backprojection_pallas as bpp
-    rng = np.random.default_rng(31)
-    shape = (37, 40, 50)           # dz, ny, nx (unaligned on purpose)
-    vol = rng.standard_normal(shape).astype(np.float32)
-    vk = bpp.to_kernel_layout(jnp.asarray(vol))
-    dev = np.asarray(bpp.from_kernel_layout(vk, shape))
-    host = bpp.from_kernel_layout_host(vk, shape, slab=16)
-    np.testing.assert_array_equal(host, dev)
-    np.testing.assert_array_equal(host, vol)
-
-
-def test_stage_chunk_u16_quantization_edges():
-    """Per-FRAME affine-u16 staging: constant chunks (zero range),
-    negative values, per-frame ranges, and zero-dequantizing padded
-    tail frames."""
-    import jax
-    from paris_tpu.pipeline import Reconstructor
-    det = DetectorGeometry(
-        n_row=96, n_col=80, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
-    rec = Reconstructor(det, vol, chunk_size=2, backend="pallas",
-                        interpret=True, accuracy="fast")
     rng = np.random.default_rng(5)
-    chunk = rng.uniform(-3.0, 5.0, (2, det.n_col, det.n_row)).astype(
-        np.float32)
-    dev, _, _, q = rec.stage_chunk(chunk, np.zeros(2, np.float32))
-    assert dev.dtype == jnp.uint16
-    q = np.asarray(q)
-    assert q.shape == (2, 2)
-    back = np.asarray(dev, np.float32) * q[:, 0, None, None] \
-        + q[:, 1, None, None]
-    assert np.abs(back - chunk).max() <= (5.0 + 3.0) / 65535 * 1.01
-
-    flat = np.full((2, det.n_col, det.n_row), 7.5, np.float32)
-    devf, _, _, qf = rec.stage_chunk(flat, np.zeros(2, np.float32))
-    qf = np.asarray(qf)
-    backf = np.asarray(devf, np.float32) * qf[:, 0, None, None] \
-        + qf[:, 1, None, None]
-    np.testing.assert_allclose(backf, flat)
-
-    # per-frame ranges: an all-positive frame must NOT have its lo
-    # dragged to 0 by a sibling frame or padding (ADVICE r3)
-    recp = Reconstructor(det, vol, chunk_size=4, backend="pallas",
-                         interpret=True, accuracy="fast")
-    pos = rng.uniform(1000.0, 1500.0, (2, det.n_col, det.n_row)).astype(
-        np.float32)
-    devp, _, _, qp = recp.stage_chunk(pos, np.zeros(2, np.float32))
-    qp = np.asarray(qp)
-    # real frames: lo ~ each frame's own min, step ~ frame_range/65535
-    for j in range(2):
-        assert qp[j, 1] == pos[j].min()
-        assert qp[j, 0] <= (pos[j].max() - pos[j].min()) / 65535.0 * 1.01
-    # padded tail frames: scale=0, lo=0 -> dequantize to EXACT zeros
-    np.testing.assert_array_equal(qp[2:], 0.0)
-    backp = np.asarray(devp, np.float32) * qp[:, 0, None, None] \
-        + qp[:, 1, None, None]
-    np.testing.assert_array_equal(backp[2:], 0.0)
-    assert np.abs(backp[:2] - pos).max() <= 500.0 / 65535 * 1.01
-
-    # exact mode stays f32 on the wire
-    rece = Reconstructor(det, vol, chunk_size=2, backend="pallas",
-                         interpret=True, accuracy="exact")
-    deve, _, _, qe = rece.stage_chunk(chunk, np.zeros(2, np.float32))
-    assert deve.dtype == jnp.float32
-    np.testing.assert_array_equal(np.asarray(qe),
-                                  [[1.0, 0.0], [1.0, 0.0]])
-
-
-def test_stage_stream_order_counts_and_errors():
-    """stage_stream yields staged packs IN ORDER with true counts,
-    runs the stage fn on worker threads, and propagates producer
-    exceptions to the consumer."""
-    from paris_tpu.pipeline import stage_stream
-    import threading
-
-    seen_threads = set()
-
-    def stage(data, ang):
-        seen_threads.add(threading.current_thread().name)
-        return data * 2
-
-    pairs = [(np.full(3, i), list(range(i + 1))) for i in range(7)]
-    out = list(stage_stream(stage, iter(pairs), depth=3, workers=2))
-    assert [int(s[0]) for s, _ in out] == [0, 2, 4, 6, 8, 10, 12]
-    assert [n for _, n in out] == [1, 2, 3, 4, 5, 6, 7]
-    assert all(t.startswith("paris-stage") for t in seen_threads)
-
-    def bad_pairs():
-        yield pairs[0]
-        raise RuntimeError("source died")
-
-    with pytest.raises(RuntimeError, match="source died"):
-        list(stage_stream(stage, bad_pairs()))
-
-    def bad_stage(data, ang):
-        raise ValueError("stage died")
-
-    with pytest.raises(ValueError, match="stage died"):
-        list(stage_stream(bad_stage, iter(pairs)))
-
-
-def test_step_cache_keys_on_env_knobs(monkeypatch):
-    """Two Reconstructors under different trace-time env knobs
-    (PARIS_BP_FORI here) must NOT share a compiled step; identical
-    envs must (regression for the r3 cache-key hole: the key omitted
-    PARIS_BP_FORI/WINDOWS/STATICWIN/DEBUG_VARIANT/VMEM_BUDGET, so
-    changing one silently reused the stale step)."""
-    from paris_tpu.pipeline import Reconstructor
-    det = DetectorGeometry(
-        n_row=96, n_col=80, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
-
-    def build():
-        return Reconstructor(det, vol, chunk_size=2, backend="pallas",
-                             interpret=True, accuracy="fast")
-
-    monkeypatch.delenv("PARIS_BP_FORI", raising=False)
-    a = build()
-    assert build()._step is a._step          # same env -> shared step
-    monkeypatch.setenv("PARIS_BP_FORI", "2")
-    b = build()
-    assert b._step is not a._step            # knob changed -> new step
-    monkeypatch.setenv("PARIS_BP_DEBUG_VARIANT", "1")
-    assert build()._step is not b._step
-
-
-def test_pallas_fori_partial_unroll_matches(monkeypatch):
-    """PARIS_BP_FORI=N (angle loop over N-unrolled blocks) == full
-    unroll, including the static-plan path."""
-    det, vol, grid, projs, phi = (None,) * 5
-    det = DetectorGeometry(
-        n_row=96, n_col=640, l_px_row=2.0, l_px_col=2.0,
-        delta_s=0.0, delta_t=0.0, d_so=500.0, d_od=500.0, delta_phi=2.0,
-    )
-    vol = derive_volume_geometry(det)
-    grid = make_bp_grid(det, vol)
-    rng = np.random.default_rng(43)
-    projs = rng.standard_normal((4, det.n_col, det.n_row)).astype(np.float32)
-    phi = np.deg2rad([0.0, 33.0, 200.0, 290.0]).astype(np.float32)
-    sin, cos = jnp.sin(jnp.asarray(phi)), jnp.cos(jnp.asarray(phi))
-    dz = 16
-    z0 = 536
-    vol0 = jnp.zeros((dz, vol.dim_y, vol.dim_x), jnp.float32)
-    from paris_tpu.ops import backprojection_pallas as bpp
-    vk = bpp.to_kernel_layout(vol0)
-    pt = bpp.pad_projections_t(jnp.asarray(projs))
-    offs = jnp.asarray([0, 0, z0, 0], jnp.int32)
-
-    def run():
-        out = bpp.backproject_chunk_pallas_yxz(
-            vk, pt, sin, cos, grid, offs, interpret=True,
-            window_mode="dynamic", static_plan=(z0, 0))
-        return np.asarray(bpp.from_kernel_layout(out, vol0.shape))
-
-    ref = run()
-    for n in ("1", "2"):
-        monkeypatch.setenv("PARIS_BP_FORI", n)
-        np.testing.assert_allclose(run(), ref, rtol=1e-6, atol=1e-6,
-                                   err_msg=f"fori={n}")
-
-
-def test_step_cache_lru_bound(monkeypatch):
-    """The in-process compiled-step cache is LRU-bounded
-    (PARIS_STEP_CACHE_MAX): a service rotating geometries must not
-    accumulate ~75 MB executables without limit; recently-touched keys
-    survive eviction."""
-    from paris_tpu import pipeline
-
-    monkeypatch.setattr(pipeline, "_STEP_CACHE", __import__(
-        "collections").OrderedDict())
-    monkeypatch.setenv("PARIS_STEP_CACHE_MAX", "3")
-    for i in range(3):
-        pipeline._step_cache_put(("k", i), f"step{i}")
-    assert pipeline._step_cache_get(("k", 0)) == "step0"   # refresh k0
-    pipeline._step_cache_put(("k", 3), "step3")            # evicts k1 (LRU)
-    assert set(pipeline._STEP_CACHE) == {("k", 0), ("k", 2), ("k", 3)}
-    assert pipeline._step_cache_get(("k", 1)) is None
+    projs = jnp.asarray(rng.standard_normal((8, det.n_col, det.n_row)),
+                        jnp.float32)
+    phi = jnp.deg2rad(jnp.asarray(_angles(8, 6)))
+    sin, cos = jnp.sin(phi), jnp.cos(phi)
+    v0 = jnp.zeros(vol.shape_zyx, jnp.float32)
+    ref = backproject_chunk_xla(v0, projs, sin, cos, grid)
+    out = jax.jit(backproject_chunk_gpu, static_argnums=(4,))(
+        v0, projs, sin, cos, grid, jnp.zeros(3, jnp.int32))
+    _assert_close(np.asarray(out), np.asarray(ref))
